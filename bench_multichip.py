@@ -1,16 +1,14 @@
 """Scaling-efficiency bench: sharded scoring reads/s vs device count.
 
-Measures `parallel.mesh.ShardedScorer` (the production multi-chip path,
+Measures `parallel.mesh.ShardedScorer` (the production multi-device path,
 wired into `engine.runner._score_reads_tpu`) on the flagship 20-barcode
 architecture at 1/2/4/8 devices and reports parallel efficiency relative
-to 1 device.
+to 1 device.  Needs at least two devices and exits non-zero otherwise.
 
-On a real multi-chip TPU slice this measures ICI scaling of the fused
-Pallas pipeline.  On the CPU test rig it runs on the virtual
-8-host-device mesh with the XLA-scan flavor — virtual devices share the
-host's cores, so the absolute numbers measure the sharding machinery's
-overhead and the host's thread-level scaling, not ICI (stated in the
-output).  Usage:  python bench_multichip.py [--batch 16384] [--len 48]
+``--force-cpu`` runs on a virtual 8-device CPU mesh instead: virtual
+devices share the host's cores, so those numbers measure the sharding
+machinery's overhead, not device scaling (stated in the output).
+Usage:  python bench_multichip.py [--batch 16384] [--len 48] [--force-cpu]
 """
 
 import argparse
@@ -26,17 +24,6 @@ def main():
     ap.add_argument("--len", dest="length", type=int, default=48)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--force-cpu", action="store_true")
-    ap.add_argument(
-        "--engine",
-        choices=("auto", "pallas", "xla-scan"),
-        default="auto",
-        help=(
-            "auto = pallas on TPU, xla-scan on CPU; 'pallas' on the CPU "
-            "virtual mesh runs the REAL sharded Pallas kernels in interpret "
-            "mode (slow, but measures the shipped path's sharding machinery "
-            "— VERDICT r2 item 6)"
-        ),
-    )
     args = ap.parse_args()
 
     if args.force_cpu:
@@ -47,42 +34,22 @@ def main():
                 flags + " --xla_force_host_platform_device_count=8"
             ).strip()
 
-    import jax
-
-    if args.force_cpu:
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tagdust_tpu.jax_env import jax
 
     devices = jax.devices()
     if len(devices) < 2:
-        # single real chip: fall back to the virtual CPU mesh so the
-        # machinery is still exercised; rerun on a pod for ICI numbers
-        print(
-            f"only {len(devices)} {devices[0].platform} device(s); "
-            "re-exec on the virtual 8-device CPU mesh",
-            file=sys.stderr,
-        )
-        os.execv(
-            sys.executable,
-            [sys.executable, os.path.abspath(__file__), "--force-cpu",
-             "--batch", str(args.batch), "--len", str(args.length),
-             "--reps", str(args.reps), "--engine", args.engine],
+        sys.exit(
+            f"bench_multichip: needs >= 2 devices, JAX found {len(devices)} "
+            f"{devices[0].platform} device(s)"
         )
 
     import numpy as np
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import __graft_entry__ as g
     from tagdust_tpu.parallel.mesh import ShardedScorer, make_mesh
 
     platform = devices[0].platform
-    if args.engine == "auto":
-        use_pallas = platform == "tpu"
-    else:
-        use_pallas = args.engine == "pallas"
-    interpret_note = use_pallas and platform == "cpu"
     eng = g._flagship_engine()
     rng = np.random.default_rng(0)
     B, L = args.batch, args.length
@@ -92,9 +59,7 @@ def main():
     results = {}
     counts = [n for n in (1, 2, 4, 8) if n <= len(devices)]
     for n in counts:
-        scorer = ShardedScorer(
-            eng, make_mesh(devices[:n]), use_pallas=use_pallas
-        )
+        scorer = ShardedScorer(eng, make_mesh(devices[:n]))
         out = scorer.run(seqs, lens)  # warmup/compile
         jax.block_until_ready(out[:5])
         t0 = time.perf_counter()
@@ -104,31 +69,18 @@ def main():
         dt = (time.perf_counter() - t0) / args.reps
         rps = B / dt
         results[n] = rps
-        eff = rps / (results[1] * n)
         print(
             json.dumps(
                 {
                     "devices": n,
                     "platform": platform,
-                    "engine": (
-                        "pallas-interpret" if interpret_note
-                        else "pallas" if use_pallas else "xla-scan"
-                    ),
-                    "reads_per_s": round(rps),
-                    "scaling_efficiency": round(eff, 3),
+                    "device_kind": devices[0].device_kind,
+                    "reads_per_s": rps,
+                    "scaling_efficiency": rps / (results[1] * n),
                     "note": (
-                        (
-                            "virtual host devices share CPU cores"
-                            + (
-                                "; REAL sharded Pallas kernels in interpret"
-                                " mode — measures the shipped path's"
-                                " machinery, absolute rps meaningless"
-                                if interpret_note
-                                else ""
-                            )
-                        )
+                        "virtual host devices share CPU cores"
                         if platform == "cpu"
-                        else "real chips"
+                        else "real devices"
                     ),
                 }
             )

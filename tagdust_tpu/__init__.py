@@ -1,13 +1,12 @@
-"""tagdust_tpu — a TPU-native read-classification / demultiplexing framework.
+"""tagdust_tpu — an accelerator read-classification / demultiplexing framework.
 
 A ground-up rebuild of the capabilities of TagDust2 (Lassmann, BMC
-Bioinformatics 16:24, 2015; reference tree mounted at /root/reference) designed
-for TPU hardware:
+Bioinformatics 16:24, 2015) in JAX, running on NVIDIA GPUs:
 
 * the user-facing *read architecture* DSL (``-1 B:AC,GG -2 R:N`` ...) compiles
   into dense profile-HMM parameter tensors (`tagdust_tpu.model`),
 * the per-read forward/backward + max-posterior labeling dynamic program runs
-  batched on TPU via JAX/XLA and Pallas kernels (`tagdust_tpu.engine`),
+  batched on the device via JAX/XLA (`tagdust_tpu.engine`),
 * a bit-exact deterministic engine (`tagdust_tpu.engine.exact`) reproduces the
   reference's ``-DRTEST`` float32 lookup-table arithmetic for golden
   regression tests,
@@ -29,8 +28,8 @@ def _tune_malloc() -> None:
     chunk pays first-touch page faults for its whole working set; on
     virtualised hosts (nested EPT) faults can run at ~50MB/s — 100x slower
     than warm memory.  Raising M_MMAP_THRESHOLD/M_TRIM_THRESHOLD makes the
-    heap grow once and stay warm (measured 55MB/s -> 7.2GB/s for repeated
-    200MB alloc+fill on this rig).  Trades peak-RSS trimming for throughput;
+    heap grow once and stay warm (a large gain for repeated 200MB
+    alloc+fill on virtualised hosts).  Trades peak-RSS trimming for throughput;
     disable with TAGDUST_TPU_MALLOC_REUSE=0."""
     import os
     import sys

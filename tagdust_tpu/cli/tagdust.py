@@ -72,7 +72,7 @@ def main(argv=None) -> None:
     if param.profile_dir:
         # tracing subsystem: device + host profile written for TensorBoard /
         # xprof (the reference only has timestamped log lines, misc.c:285)
-        import jax
+        from ..jax_env import jax
 
         with jax.profiler.trace(param.profile_dir):
             hmm_controller_multiple(param, log=log)

@@ -10,7 +10,8 @@ Framework-specific additions:
   reference builds as separate ``*_rtest`` binaries (LCG rand, 1000-read
   chunks, 4000 calibration sims; ``src/Makefile.am:89-99``).
 * ``-engine {auto,exact,tpu}`` picks the DP engine (exact float32 table
-  arithmetic vs the TPU Pallas path).
+  arithmetic vs the device engine; ``auto`` takes the device engine when
+  JAX runs on a GPU).
 """
 
 from __future__ import annotations

@@ -268,7 +268,7 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
             break
 
     # ------------------------------------------------------------------
-    # Pipelined streaming loop (the TPU-native analogue of the reference's
+    # Pipelined streaming loop (the device-era analogue of the reference's
     # popen decompression overlap, io.c:459-606, widened to the whole IO
     # path): a reader thread prefetches the next chunk while the current
     # one is scored/extracted, and a writer thread drains finished chunks.

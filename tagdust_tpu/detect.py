@@ -73,10 +73,8 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
         bscores = np.zeros((n_arch, numseq), dtype=np.float32)
         if kind == "tpu":
             # device MODE_ARCH_COMP: one padded [B, Lmax] batch, one masked
-            # backward sweep per candidate on the chip — the detection
-            # pre-pass no longer serializes a TPU run on the host engine
-            # (VERDICT round 3, item 6); the host path below stays the
-            # -rtest / -engine exact parity reference
+            # backward sweep per candidate on the device; the host path
+            # below stays the -rtest / -engine exact parity reference
             from .engine.runner import _pad_tpu_batch
 
             lens = np.fromiter(

@@ -1,9 +1,9 @@
 """Closure compiler: profile-HMM -> dense per-base transition matrices.
 
-This is the TPU-first reformulation of the reference DP.  The reference
+This is the dense-matrix reformulation of the reference DP.  The reference
 recurrence (``barcode_hmm.c:3655-3816``) walks a sparse lattice of
 M/I/D/silent states per position with scalar log-space ops — ideal for a
-CPU, hostile to a systolic array.  Here all *non-emitting* states (delete
+CPU, hostile to a matrix unit.  Here all *non-emitting* states (delete
 chains within a step, the silent segment chain) are eliminated by transitive
 closure on the host (float64), leaving only emitting M/I states plus a
 virtual BEGIN state.  One DP step then becomes a dense linear-space matrix
@@ -11,7 +11,8 @@ product
 
     v[i] = v[i-1] @ A[c_i]          (A: [5, S, S], one matrix per base)
 
-which maps straight onto the MXU, with per-step rescaling for range.  The
+which maps straight onto matrix hardware, with per-step rescaling for
+range.  The
 backward pass uses the transposed matrices, the posterior is the elementwise
 product, and the observable outputs (f_score, per-position label posteriors,
 barcode probability, Q) match the reference math including its structural
@@ -143,126 +144,6 @@ def compile_count_decomposition(mb: ModelBag):
                     direct[c, dM, dI] = trans[j][f, g, MI] * ie[j][f, g, c]
     dpart = A - entry - direct
     return entry, direct, dpart, meta
-
-
-def grouped_step_decomposition(mb: ModelBag, lat: Lattice, tile: int = 128):
-    """Factor the per-base step matrices for the block-banded fast path:
-
-        A[c] = blockdiag(per-(segment,alt) chains)
-             + sum_j outer(silent_row(j-1), went[c, j-th segment states])
-
-    Cross-segment flow only rides the silent chain, so every off-block
-    column of A[c] is the same per-segment source vector (silent exits)
-    times a per-destination weight ``went`` (the silent->M/I entry weight
-    including the within-step delete-chain continuation, which makes it
-    base-dependent).  The fused kernel then replaces the dense ``[Sp, Sp]``
-    step matmuls with per-group ``[tile, tile]`` block matmuls plus thin
-    ``[nm, S]`` entry matmuls (VERDICT round 1, item 5 — the 48-barcode
-    Sp^2 cliff).
-
-    Returns None when any single chain exceeds ``tile`` lanes or the
-    residual check fails (dense fallback), else a dict with:
-
-    * ``spans`` — list of (s0, s1) contiguous original-state ranges, each
-                  <= tile wide, cut only at chain boundaries;
-    * ``D``     — f32 [5, S, S] block-diagonal remainder;
-    * ``Uexit`` — f32 [S, nm] silent-exit rows (column j = silent_row(j-1));
-    * ``Went``  — f32 [5, nm, S] per-base entry weights (segment-masked).
-    """
-    S = lat.S
-    nm = mb.num_models
-
-    # rebuild the index map and silent rows exactly as compile_lattice does
-    idx = {}
-    blocks = []  # (start, width) per (segment, alt) chain
-    Scnt = 0
-    for j, m in enumerate(mb.models):
-        for f in range(m.num_hmms):
-            blocks.append((Scnt, 2 * m.num_cols))
-            for g in range(m.num_cols):
-                idx[("M", j, f, g)] = Scnt
-                idx[("I", j, f, g)] = Scnt + 1
-                Scnt += 2
-    BEGIN = Scnt
-    blocks.append((BEGIN, 1))
-    if any(w > tile for _, w in blocks):
-        return None
-
-    trans = [_lin(m.trans) for m in mb.models]
-    me = [_lin(m.m_emit) for m in mb.models]
-    ie = [_lin(m.i_emit) for m in mb.models]
-    s2M = [_lin(m.silent_to_M) for m in mb.models]
-    s2I = [_lin(m.silent_to_I) for m in mb.models]
-    skip = [float(np.exp(np.float64(m.skip))) for m in mb.models]
-    u = np.zeros((nm, S), dtype=np.float64)
-    for j, m in enumerate(mb.models):
-        if j > 0:
-            u[j] += u[j - 1] * (skip[j] * m.num_hmms)
-        for f in range(m.num_hmms):
-            for g in range(m.num_cols):
-                u[j, idx[("M", j, f, g)]] += trans[j][f, g, MSKIP]
-                u[j, idx[("I", j, f, g)]] += trans[j][f, g, ISKIP]
-    beta = np.zeros(nm + 1, dtype=np.float64)
-    beta[0] = 1.0
-    acc = 1.0
-    for j in range(nm):
-        acc *= skip[j]
-        beta[j + 1] = acc
-
-    Uexit = np.zeros((S, nm), dtype=np.float64)
-    Went = np.zeros((5, nm, S), dtype=np.float64)
-    for j, m in enumerate(mb.models):
-        if j - 1 >= 0:
-            Uexit[:, j] = u[j - 1]
-            Uexit[BEGIN, j] = beta[j]
-        else:
-            Uexit[BEGIN, j] = beta[0]
-        T, ME, IE = trans[j], me[j], ie[j]
-        for f in range(m.num_hmms):
-            # psrow-coefficient recursion mirroring compile_lattice's Drow:
-            # the within-step delete chain carries entry mass forward, so
-            # the entry weight of M(g) includes d[c]*DM from earlier columns
-            dco = np.zeros(5, dtype=np.float64)  # Drow entry coefficient
-            mco_prev = np.zeros(5, dtype=np.float64)
-            for g in range(m.num_cols):
-                dM = idx[("M", j, f, g)]
-                dI = idx[("I", j, f, g)]
-                raw = np.full(5, s2M[j][f, g])
-                if g >= 1:
-                    raw = raw + dco * T[f, g - 1, DM]
-                mco = raw * ME[f, g]
-                Went[:, j, dM] = mco
-                Went[:, j, dI] = s2I[j][f, g] * IE[f, g]
-                if g >= 1:
-                    dco = mco_prev * T[f, g - 1, MD] + dco * T[f, g - 1, DD]
-                mco_prev = mco
-
-    entry = np.einsum("sj,cjt->cst", Uexit, Went)
-    D = lat.A - entry.astype(np.float32)
-    mask = np.zeros((S, S), dtype=bool)
-    for s0, w in blocks:
-        mask[s0 : s0 + w, s0 : s0 + w] = True
-    off = np.abs(D[:, ~mask])
-    tol = 1e-5 * max(float(np.abs(lat.A).max()), 1.0) + 1e-12
-    if off.size and off.max() > tol:
-        return None  # unexpected structure: stay on the dense path
-
-    D[:, ~mask] = 0.0
-    spans = []
-    cur0, cur1 = 0, 0
-    for s0, w in blocks:
-        if s0 + w - cur0 > tile:
-            spans.append((cur0, cur1))
-            cur0 = s0
-        cur1 = s0 + w
-    spans.append((cur0, cur1))
-
-    return {
-        "spans": spans,
-        "D": D.astype(np.float32),
-        "Uexit": Uexit.astype(np.float32),
-        "Went": Went.astype(np.float32),
-    }
 
 
 def compile_lattice(mb: ModelBag) -> Lattice:

@@ -1,10 +1,10 @@
 """Device-side batched Myers bit-parallel edit distance.
 
-The TPU-native expression of the reference's bit-parallel intra-read
+The device expression of the reference's bit-parallel intra-read
 parallelism (``bmp_single``, ``misc.c:718-765``; inventory SURVEY.md §2.4
 item 2): the 64-bit pattern words live as uint32 lane pairs, one lane per
 read, and the recurrence scans the *shared* contaminant text — so one
-`lax.scan` advances every read's automaton simultaneously on the VPU.
+`lax.scan` advances every read's automaton simultaneously.
 
 Semantics match :func:`tagdust_tpu.filters._bpm_batch` exactly (asserted by
 tests): patterns capped at 63 symbols, spacer symbols skip the match masks
@@ -17,7 +17,7 @@ import functools
 
 import numpy as np
 
-import jax
+from ..jax_env import jax
 import jax.numpy as jnp
 
 _U32 = jnp.uint32

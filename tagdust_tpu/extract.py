@@ -451,7 +451,7 @@ def extract_batch_columnar(
 def apply_device_decisions(batch, res: dict, required_finger_len: int) -> None:
     """Apply ON-DEVICE extraction decisions to a columnar batch window.
 
-    ``res`` is `TpuEngine.collect_pallas_decided` output: the device already
+    ``res`` is `TpuEngine.collect_decided` output: the device already
     evaluated extract_reads' decision tree (barcode_hmm.c:3203-3304) on the
     label path — threshold pass, per-R minlen, barcode alt + null-N
     rejection, fingerprint key — so the host work left is exactly the byte

@@ -175,20 +175,9 @@ def _reference_hits(fwd, rev, lens, contaminant_seqs, error_cut, device):
     """Shared core: best Myers distance over contaminants x orientations."""
     kernel = _bpm_batch
     if device:
-        try:
-            from .engine.myers_tpu import bpm_batch_device
+        from .engine.myers_tpu import bpm_batch_device
 
-            kernel = bpm_batch_device
-        except Exception as e:  # noqa: BLE001 — loud downgrade, strict re-raise
-            from .strict import fallback
-
-            fallback(
-                "myers-device",
-                e,
-                "device Myers kernel unavailable; artifact filter runs on "
-                "host uint64 lanes",
-            )
-            kernel = _bpm_batch
+        kernel = bpm_batch_device
     B = fwd.shape[0]
     B4f = _pattern_masks(fwd, lens)
     B4r = _pattern_masks(rev, lens)

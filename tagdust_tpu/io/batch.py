@@ -2,8 +2,8 @@
 
 The reference materialises one ``read_info`` struct per read
 (``io.h:76-91``); this framework's per-read Python objects (`Read`) mirror
-that for the parity paths, but at TPU throughput (>100k reads/s through the
-whole CLI) per-read Python objects dominate the host cost.  ``ReadBatch``
+that for the parity paths, but at device throughput per-read Python
+objects dominate the host cost.  ``ReadBatch``
 holds an entire chunk as flat arrays:
 
 * ``name_arena`` / ``name_off`` — raw header bytes, offsets (``[B+1]``);

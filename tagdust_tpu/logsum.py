@@ -15,7 +15,7 @@ sp2p(x) = float32(exp(float64(x))) with -inf -> 0.
 All helpers here operate on numpy float32 arrays and reproduce the exact
 rounding behaviour (truncation toward zero of the table index, float32
 addition order is the caller's responsibility).  This module is the numerics
-substrate for the deterministic "exact" engine; the TPU performance engine
+substrate for the deterministic "exact" engine; the device engine
 uses true log-sum-exp instead.
 """
 

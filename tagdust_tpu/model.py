@@ -1,6 +1,6 @@
 """Architecture -> profile-HMM compiler producing dense parameter tensors.
 
-This is the TPU-native counterpart of the reference model builder
+This is the tensor counterpart of the reference model construction
 (``init_model_bag``, ``barcode_hmm.c:5760-6011``;
 ``init_model_according_to_read_structure``, ``:4689-5084``;
 ``set_hmm_transition_parameters``, ``:1710-1881``).  Instead of linked
@@ -20,7 +20,7 @@ Every arithmetic step reproduces the reference's float32 rounding:
 additions in the same association order, and the float32 table-logsum is used
 where the reference accumulates with ``logsum()``.  This makes the compiled
 tensors bit-identical to the C model and is what the deterministic engine
-(and the RTEST golden tests) build on.  The TPU engine consumes the same
+(and the RTEST golden tests) build on.  The device engine consumes the same
 tensors (converted to a state-flat layout in `engine/lattice.py`).
 
 Segment-type semantics (segment grammar, ``interface.c:503-516`` and manual):

@@ -1,20 +1,19 @@
-"""Multi-chip scale-out: data-parallel read sharding over a device mesh.
+"""Multi-device scale-out: data-parallel read sharding over a device mesh.
 
 The reference's only parallelism is a pthread fan-out over reads with
 per-thread model copies and a join-then-reduce step
-(``barcode_hmm.c:1895-2029``).  The TPU-native equivalent implemented here:
+(``barcode_hmm.c:1895-2029``).  The device equivalent implemented here:
 
 * HMM parameter tensors (the compiled lattice) are **replicated** to every
-  chip;
+  device;
 * read batches are **sharded on the batch axis** across the mesh
-  (`jax.sharding.NamedSharding` over a 1-D ``reads`` mesh axis — ICI within
-  a slice, DCN across hosts);
+  (`jax.sharding.NamedSharding` over a 1-D ``reads`` mesh axis);
 * per-outcome counters and architecture posteriors are reduced with
   ``psum`` (`shard_map`), the collective analogue of the reference's
   join-then-reduce.
 
-Reads never split across chips: the sequence axis is the scan dimension of
-the per-chip kernel (SURVEY.md §2.4).
+Reads never split across devices: the sequence axis is the scan dimension
+of the per-device DP (SURVEY.md §2.4).
 """
 
 from __future__ import annotations
@@ -24,12 +23,12 @@ from typing import Optional
 
 import numpy as np
 
-import jax
+from ..jax_env import jax
 import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..engine.tpu import TpuEngine, _forward_backward
+from ..engine.tpu import TpuEngine
 
 
 def make_mesh(devices=None) -> Mesh:
@@ -38,33 +37,19 @@ def make_mesh(devices=None) -> Mesh:
 
 
 class ShardedScorer:
-    """Data-parallel scorer: same per-chip program as `TpuEngine`, plus a
-    psum-reduced outcome histogram (the distributed analogue of
-    ``log_information`` counting, barcode_hmm.c:354-385).
+    """Data-parallel scorer: each device runs the engine's own per-device
+    program (`TpuEngine._get_scorer`, `_get_packed`, `_get_decided`) on its
+    batch shard, plus a psum-reduced outcome histogram (the distributed
+    analogue of ``log_information`` counting, barcode_hmm.c:354-385)."""
 
-    ``use_pallas=True`` runs the **fused Pallas pipeline** on every shard —
-    the exact per-chip program production uses on one chip, sharded on the
-    batch axis; ``False`` runs the XLA matmul-scan flavor of the same
-    lattice (used on CPU rigs where interpret-mode Pallas is slow).  Both
-    produce identical decisions (asserted by tests); the production runner
-    picks exactly as it does for one device (``TAGDUST_TPU_PALLAS``)."""
-
-    def __init__(
-        self,
-        engine: TpuEngine,
-        mesh: Optional[Mesh] = None,
-        use_pallas: bool = False,
-        batch_tile: Optional[int] = None,
-    ):
+    def __init__(self, engine: TpuEngine, mesh: Optional[Mesh] = None):
         self.engine = engine
         self.mesh = mesh or make_mesh()
         self.n = int(self.mesh.devices.size)
-        self.use_pallas = use_pallas
-        self.batch_tile = batch_tile
         self._cache: dict = {}
 
     def _outcome_counts(self, mapq, valid, threshold):
-        # outcome accounting reduced across chips (psum == the reference's
+        # outcome accounting reduced across devices (psum == the reference's
         # join-then-reduce, barcode_hmm.c:1987-1992); padded reads masked out
         accept = (mapq >= threshold) & valid
         reject = (mapq < threshold) & valid
@@ -77,29 +62,15 @@ class ShardedScorer:
         return jax.lax.psum(counts, "reads")
 
     def _get_fn(self, Lp: int):
-        key = (Lp, self.use_pallas)
+        key = ("score", Lp)
         if key in self._cache:
             return self._cache[key]
-        if self.use_pallas:
-            _, full, tile = self.engine._get_pallas(
-                Lp, self.batch_tile or self.engine.default_batch_tile()
-            )
+        _, full = self.engine._get_scorer(Lp)
 
-            def per_shard(seqs, lens, valid, threshold):
-                f_log, r_log, bar_log, labels, mapq = full(seqs, lens)
-                counts = self._outcome_counts(mapq, valid, threshold)
-                return f_log, r_log, bar_log, labels, mapq, counts
-
-        else:
-            tile = 1
-            lat_dev = self.engine._dev
-
-            def per_shard(seqs, lens, valid, threshold):
-                f_log, r_log, bar_log, labels, mapq = _forward_backward(
-                    lat_dev, seqs.astype(jnp.int32), lens
-                )
-                counts = self._outcome_counts(mapq, valid, threshold)
-                return f_log, r_log, bar_log, labels, mapq, counts
+        def per_shard(seqs, lens, valid, threshold):
+            f_log, r_log, bar_log, labels, mapq = full(seqs, lens)
+            counts = self._outcome_counts(mapq, valid, threshold)
+            return f_log, r_log, bar_log, labels, mapq, counts
 
         fn = jax.jit(
             shard_map(
@@ -117,134 +88,108 @@ class ShardedScorer:
                 check_vma=False,
             )
         )
-        self._cache[key] = (fn, tile)
-        return fn, tile
+        self._cache[key] = fn
+        return fn
 
     # ---------------- packed streaming dispatch ----------------
     def _get_packed_fn(self, Lp: int):
-        """Per-shard PACKED program under shard_map: each chip runs the
-        exact single-chip packed pipeline (labels|scores|DUST bitcast into
-        one uint8 row per read, engine/tpu.py:_get_pallas_packed) on its
-        batch shard.  This is what lets the production streaming loop
+        """Per-shard PACKED program under shard_map: each device runs the
+        exact single-device packed pipeline (labels|scores|DUST bitcast into
+        one uint8 row per read, engine/tpu.py:_get_packed) on its batch
+        shard.  This is what lets the production streaming loop
         (engine/runner.py:_label_tpu_streaming) keep its DEPTH-in-flight
         windows, single-fetch results and async copies when the mesh is
-        engaged — the multi-chip path is the single-chip path times n,
-        not a different program (VERDICT r4, item 1)."""
-        # key carries the tile: TAGDUST_TPU_BT may change between chunks in
-        # one process, and a stale fn with a different baked tile would
-        # reject (or mis-pad) freshly built windows (same rule as the
-        # engine-side packed cache)
-        tile = self.batch_tile or self.engine.default_batch_tile()
-        key = ("packed", Lp, tile)
-        if key in self._cache:
-            return self._cache[key]
-        _, raw, _, tile = self.engine._get_pallas_packed(Lp, tile)
-        fn = jax.jit(
-            shard_map(
-                raw,
-                mesh=self.mesh,
-                in_specs=(P("reads", None), P("reads")),
-                out_specs=P("reads", None),
-                check_vma=False,
+        engaged — the multi-device path is the single-device path times n,
+        not a different program."""
+        key = ("packed", Lp)
+        if key not in self._cache:
+            _, raw = self.engine._get_packed(Lp)
+            self._cache[key] = jax.jit(
+                shard_map(
+                    raw,
+                    mesh=self.mesh,
+                    in_specs=(P("reads", None), P("reads")),
+                    out_specs=P("reads", None),
+                    check_vma=False,
+                )
             )
-        )
-        self._cache[key] = (fn, tile)
-        return fn, tile
+        return self._cache[key]
 
     def _get_decided_fn(self, Lp: int):
         """Per-shard DECIDED program (on-device extraction decisions,
-        engine/tpu.py:_get_pallas_decided) under shard_map — threshold and
-        minlen ride along as replicated scalars."""
+        engine/tpu.py:_get_decided) under shard_map — threshold and minlen
+        ride along as replicated scalars."""
         from ..engine.tpu import nibble_uploads
 
-        tile = self.batch_tile or self.engine.default_batch_tile()
-        key = ("decided", Lp, tile, nibble_uploads())
-        if key in self._cache:
-            return self._cache[key]
-        _, raw, _, tile = self.engine._get_pallas_decided(Lp, tile)
-        fn = jax.jit(
-            shard_map(
-                raw,
-                mesh=self.mesh,
-                in_specs=(P("reads", None), P("reads"), P(), P()),
-                out_specs=P("reads", None),
-                check_vma=False,
+        key = ("decided", Lp, nibble_uploads())
+        if key not in self._cache:
+            _, raw = self.engine._get_decided(Lp)
+            self._cache[key] = jax.jit(
+                shard_map(
+                    raw,
+                    mesh=self.mesh,
+                    in_specs=(P("reads", None), P("reads"), P(), P()),
+                    out_specs=P("reads", None),
+                    check_vma=False,
+                )
             )
-        )
-        self._cache[key] = (fn, tile)
-        return fn, tile
+        return self._cache[key]
 
-    def dispatch_packed_decided(
-        self, seqs: np.ndarray, lens: np.ndarray, thr32, minlen: int
-    ):
-        """Mesh analogue of TpuEngine.dispatch_pallas_decided (uploads are
-        nibble-packed like the single-chip path)."""
-        B, Lp = seqs.shape
-        fn, tile = self._get_decided_fn(Lp)
-        if B % (self.n * tile):
+    def _put_rows(self, seqs: np.ndarray, lens: np.ndarray):
+        if seqs.shape[0] % self.n:
             raise ValueError(
-                f"window {B} not a multiple of {self.n} devices x tile {tile}"
+                f"window {seqs.shape[0]} not a multiple of {self.n} devices"
             )
-        from ..engine.tpu import nibble_uploads
-
-        up = seqs.astype(np.uint8)
-        if nibble_uploads():
-            up = self.engine.pack_nibbles(up)
         seqs_d = jax.device_put(
-            jnp.asarray(up),
-            NamedSharding(self.mesh, P("reads", None)),
+            jnp.asarray(seqs), NamedSharding(self.mesh, P("reads", None))
         )
         lens_d = jax.device_put(
             jnp.asarray(lens.astype(np.int32)),
             NamedSharding(self.mesh, P("reads")),
         )
+        return seqs_d, lens_d
+
+    def dispatch_packed_decided(
+        self, seqs: np.ndarray, lens: np.ndarray, thr32, minlen: int
+    ):
+        """Mesh analogue of TpuEngine.dispatch_decided (uploads are
+        nibble-packed like the single-device path)."""
+        from ..engine.tpu import nibble_uploads
+
+        fn = self._get_decided_fn(seqs.shape[1])
+        up = seqs.astype(np.uint8)
+        if nibble_uploads():
+            up = self.engine.pack_nibbles(up)
+        seqs_d, lens_d = self._put_rows(up, lens)
         return fn(seqs_d, lens_d, jnp.float32(thr32), jnp.int32(minlen))
 
     def dispatch_packed(self, seqs: np.ndarray, lens: np.ndarray):
         """Asynchronously dispatch one packed window sharded over the mesh;
         returns the sharded device array without blocking (the mesh
-        analogue of TpuEngine.dispatch_pallas).  B must be a multiple of
-        ``n * batch_tile`` — the streaming window builder guarantees it."""
-        B, Lp = seqs.shape
-        fn, tile = self._get_packed_fn(Lp)
-        if B % (self.n * tile):
-            raise ValueError(
-                f"window {B} not a multiple of {self.n} devices x tile {tile}"
-            )
-        seqs_d = jax.device_put(
-            jnp.asarray(seqs.astype(np.uint8)),
-            NamedSharding(self.mesh, P("reads", None)),
-        )
-        lens_d = jax.device_put(
-            jnp.asarray(lens.astype(np.int32)),
-            NamedSharding(self.mesh, P("reads")),
-        )
-        return fn(seqs_d, lens_d)
+        analogue of TpuEngine.dispatch_packed).  B must be a multiple of
+        the device count — the streaming windows guarantee it."""
+        fn = self._get_packed_fn(seqs.shape[1])
+        return fn(*self._put_rows(seqs.astype(np.uint8), lens))
 
     def run(self, seqs: np.ndarray, lens: np.ndarray, threshold: float = 0.0):
         """Returns (f_log, r_log, bar_log, labels, mapq, counts); the first
         five are defined for the first ``len(seqs)`` rows (padding rows may
         follow), counts covers only the real reads."""
-        fn, tile = self._get_fn(seqs.shape[1])
+        fn = self._get_fn(seqs.shape[1])
         B = seqs.shape[0]
-        gran = self.n * tile
-        pad = (-B) % gran
+        pad = (-B) % self.n
         if pad:
-            # copies of read 0, not zero rows — see tpu.run_batch_pallas
+            # copies of read 0, not zero rows — see TpuEngine.run_batch
             seqs = np.concatenate(
                 [seqs, np.broadcast_to(seqs[:1], (pad, seqs.shape[1]))]
             )
             lens = np.concatenate([lens, np.broadcast_to(lens[:1], (pad,))])
         valid = np.zeros(seqs.shape[0], dtype=bool)
         valid[:B] = True
-        dtype = np.uint8 if self.use_pallas else np.int32
-        seqs_d = jax.device_put(
-            jnp.asarray(seqs.astype(dtype)),
-            NamedSharding(self.mesh, P("reads", None)),
+        seqs_d, lens_d = self._put_rows(seqs.astype(np.uint8), lens)
+        valid_d = jax.device_put(
+            jnp.asarray(valid), NamedSharding(self.mesh, P("reads"))
         )
-        row = NamedSharding(self.mesh, P("reads"))
-        lens_d = jax.device_put(jnp.asarray(lens.astype(np.int32)), row)
-        valid_d = jax.device_put(jnp.asarray(valid), row)
         return fn(seqs_d, lens_d, valid_d, jnp.float32(threshold))
 
 
@@ -253,7 +198,7 @@ def _expected_lattice_counts(lat_dev, seqs, lens):
 
     Returns (CT [5, S, S], E [5, S], n_scored): posterior transition-mass
     per (base, src, dst) and posterior emission counts per (base, state).
-    The per-step outer products run as [S, B] x [B, S] matmuls on the MXU.
+    The per-step outer products run as [S, B] x [B, S] matmuls.
     Invariant (asserted by tests): E.sum() == sum(lens) — each emitted base
     carries total posterior mass 1.
     """

@@ -2,10 +2,10 @@
 "Distributed communication backend" row).
 
 The reference is strictly single-node (pthreads, barcode_hmm.c:1895-2029).
-The TPU-native scale-out story has two layers:
+The device scale-out story has two layers:
 
 * **within a process**: the device mesh (`parallel.mesh`) — data-parallel
-  read sharding over the chips local to this host, wired into the runner;
+  read sharding over the devices local to this host, wired into the runner;
 * **across hosts** (this module): `jax.distributed` initialization plus
   per-host *input* sharding — each process owns the read chunks with
   ``global_chunk_index % process_count == process_index``, boundary-skips
@@ -39,10 +39,10 @@ def init_multihost(
     (process_index, process_count).
 
     With no arguments, jax.distributed auto-detects cluster environments
-    (TPU pods, SLURM, ...); explicit coordinator/nprocs/procid serve
+    (SLURM, ...); explicit coordinator/nprocs/procid serve
     manual launches and the CPU test rig.
     """
-    import jax
+    from ..jax_env import jax
 
     kwargs = {}
     if coordinator is not None:
@@ -53,7 +53,7 @@ def init_multihost(
         kwargs["process_id"] = process_id
 
     # Detect a pre-existing client (e.g. an auto-detected single-process
-    # TPU-env one) so explicit -coordinator/-nprocs/-procid can override it.
+    # one) so explicit -coordinator/-nprocs/-procid can override it.
     # jax._src.distributed is a private API that moves between releases, so
     # inspect it best-effort and otherwise rely on initialize() raising
     # RuntimeError when a client already exists (ADVICE round 2).

@@ -1,6 +1,6 @@
-"""Device-side architecture auto-detection (VERDICT round 3, item 6).
+"""Device-side architecture auto-detection.
 
-MODE_ARCH_COMP (test_architectures.c:38-44,182-184) is served by the TPU
+MODE_ARCH_COMP (test_architectures.c:38-44,182-184) is served by the device
 engine's backward-only scorer when the resolved engine is ``tpu``: one
 masked backward sweep per candidate on the device instead of the host
 exact engine.  Parity pinned here:

@@ -120,7 +120,7 @@ def _amplify(src, dst, times):
 def test_thread_fixture_chunk_invariance(tmp_path, ref_bins):
     """thread_test.fq + thread_arch.txt, amplified to 1200 records so the
     streaming loop actually splits: every (chunk size, engine) combination
-    must reproduce the reference binary's output byte-wise — the TPU
+    must reproduce the reference binary's output byte-wise — the device
     analogue of the reference's thread-count invariance test."""
     from conftest import spawn_env
 
@@ -141,6 +141,6 @@ def test_thread_fixture_chunk_invariance(tmp_path, ref_bins):
     # device engine (XLA scan flavor on this CPU suite rig), non-RTEST
     # mode: decisions must match the reference corpus exactly; mapq floats
     # never reach the output bytes for this fixture's R:N architecture
-    env = spawn_env(rtest=False, TAGDUST_TPU_CHUNK=250, TAGDUST_TPU_PALLAS=0)
+    env = spawn_env(rtest=False, TAGDUST_TPU_CHUNK=250)
     _run_ours(cwd, "thread_big.fq", "ours_tpu", env, extra=("-engine", "tpu"))
     _assert_same_fileset(cwd, "ours_tpu", "ref")

@@ -1,4 +1,4 @@
-"""Gold-grade validation of the TPU engine (VERDICT round 1, item 3).
+"""Gold-grade validation of the device engine.
 
 The bar_read gold scenarios run end-to-end with ``-engine tpu`` and the
 results are held to the same bar as the exact engine:
@@ -7,13 +7,11 @@ results are held to the same bar as the exact engine:
 * every read must land in the same output file as under the exact engine
   (decision identity — any flipped extraction/barcode decision fails);
 * a decision-margin audit quantifies how far each read's Q sits from the
-  calibrated threshold relative to the measured exact<->TPU score delta.
+  calibrated threshold relative to the measured exact<->device score delta.
 
-The TPU engine here runs its XLA-scan flavor (TAGDUST_TPU_PALLAS=0):
-interpret-mode Pallas is too slow for a 14k-read scenario on the CPU test
-rig, and Pallas<->XLA output equality is asserted separately
-(test_pallas_kernel.py / test_engine_equivalence.py).  On real TPU hardware
-the full Pallas CLI path is byte-compared in docs/PERFORMANCE.md runs.
+The device engine runs the same DP core and post-DP path on the CPU here
+as on a GPU; `chip_smoke.py` holds the GPU run to the exact engine on the
+same terms (decision identity, |dQ| bound).
 """
 
 import os
@@ -86,10 +84,10 @@ def _gold_scenario_both_engines(tmp_path, scenario, gold):
         ["-seed", "42", f"{scenario}.fq", "-arch", arch, "-engine", "tpu",
          "-o", "tp"],
         cwd,
-        extra_env={"TAGDUST_TPU_PALLAS": "0", "TAGDUST_TPU_STRICT": "1"},
+        extra_env={"TAGDUST_TPU_STRICT": "1"},
     )
 
-    # 1. gold metrics TSV, verbatim, for the TPU engine
+    # 1. gold metrics TSV, verbatim, for the device engine
     outs = sorted(
         f for f in os.listdir(cwd) if f.startswith("tp_") and f.endswith(".fq")
     )
@@ -118,7 +116,7 @@ def test_barread2_gold_tpu_engine(tmp_path):
 
 @requires_dev
 def test_decision_margin_audit(tmp_path):
-    """Quantified safety margin: the exact<->TPU score delta must be far
+    """Quantified safety margin: the exact<->device score delta must be far
     smaller than typical |Q - threshold| margins, and every read within the
     delta of the threshold must still decide identically (subsumed by the
     decision-identity assertions above; this test makes the numbers
@@ -150,12 +148,8 @@ def test_decision_margin_audit(tmp_path):
     reads_t = rd.read_chunk(100000)
     rd.close()
 
-    os.environ["TAGDUST_TPU_PALLAS"] = "0"
-    try:
-        score_reads(mb, reads_e, engine_kind="exact")
-        score_reads(mb, reads_t, engine_kind="tpu")
-    finally:
-        os.environ.pop("TAGDUST_TPU_PALLAS", None)
+    score_reads(mb, reads_e, engine_kind="exact")
+    score_reads(mb, reads_t, engine_kind="tpu")
 
     qe = np.array([r.mapq for r in reads_e])
     qt = np.array([r.mapq for r in reads_t])
@@ -184,11 +178,10 @@ def test_decision_margin_audit_psegment(tmp_path):
 
     The exact engine replicates the reference's 16k-entry TABLE logsum
     (misc.c:57-78); on linker-heavy reads the accumulated table error vs
-    clean f32 logsumexp reaches ~0.65 Q (measured 0.64).  The Pallas
-    FORMULATION itself (interpret mode, f32) matches the XLA scan to
-    ~0.015 Q on the same worst reads.  Pin both facts so a kernel-numerics
-    regression can't hide behind the known table effect
-    (scripts/gold_tpu_hw.py runs the on-chip counterpart)."""
+    clean f32 logsumexp reaches ~0.65 Q (measured 0.64).  The device
+    core's own float32 formulation must not add to it: the worst reads
+    rescored in a batch of their own (another batch shape, another
+    compiled program) agree with the full-batch scores to 0.05 Q."""
     from tagdust_tpu.arch import read_structure_from_params
     from tagdust_tpu.engine.runner import score_reads
     from tagdust_tpu.io.fastq import SeqReader
@@ -216,16 +209,7 @@ def test_decision_margin_audit_psegment(tmp_path):
 
     re_, rs_, rp_ = load(), load(), load()
     score_reads(mb, re_, engine_kind="exact")
-    # STRICT: a raising engine must fail the test, not silently fall back
-    # (a Pallas->scan fallback would make the d_kernel audit below a
-    # scan-vs-scan comparison that is trivially 0 — ADVICE round 3)
-    os.environ["TAGDUST_TPU_PALLAS"] = "0"
-    os.environ["TAGDUST_TPU_STRICT"] = "1"
-    try:
-        score_reads(mb, rs_, engine_kind="tpu")
-    finally:
-        os.environ.pop("TAGDUST_TPU_PALLAS", None)
-        os.environ.pop("TAGDUST_TPU_STRICT", None)
+    score_reads(mb, rs_, engine_kind="tpu")
 
     qe = np.array([r.mapq for r in re_])
     qs = np.array([r.mapq for r in rs_])
@@ -234,20 +218,11 @@ def test_decision_margin_audit_psegment(tmp_path):
         f"table-logsum delta degraded: max dQ={d_scan.max():.4f}"
     )
 
-    # kernel-formulation audit on the worst table-delta reads: interpret
-    # Pallas (f32) vs the XLA scan (f32) — slow per read, so subsample
     worst = np.argsort(d_scan)[-16:]
     sub = [rp_[i] for i in worst]
-    os.environ["TAGDUST_TPU_PALLAS"] = "1"
-    os.environ["TAGDUST_TPU_STRICT"] = "1"
-    try:
-        score_reads(mb, sub, engine_kind="tpu")
-    finally:
-        os.environ.pop("TAGDUST_TPU_PALLAS", None)
-        os.environ.pop("TAGDUST_TPU_STRICT", None)
+    score_reads(mb, sub, engine_kind="tpu")
     qp = np.array([r.mapq for r in sub])
-    d_kernel = np.abs(qp - qs[worst])
-    assert d_kernel.max() < 0.05, (
-        f"pallas-vs-scan formulation delta degraded: "
-        f"max dQ={d_kernel.max():.4f}"
+    d_core = np.abs(qp - qs[worst])
+    assert d_core.max() < 0.05, (
+        f"batch-shape delta degraded: max dQ={d_core.max():.4f}"
     )

@@ -1,19 +1,18 @@
-"""Multi-chip production path (VERDICT round 1, item 1).
+"""Multi-device production path.
 
-The fused Pallas pipeline — the exact per-chip program production uses —
-runs data-parallel over the device mesh via `parallel.mesh.ShardedScorer`,
-and the production runner (`engine.runner._score_reads_tpu`) engages the
-mesh automatically whenever more than one device is visible and the batch
-fills every chip's tile.  These tests assert, on the virtual 8-device CPU
-mesh:
+The per-device program production uses runs data-parallel over the device
+mesh via `parallel.mesh.ShardedScorer`, and the production runner
+(`engine.runner._score_reads_tpu`) engages the mesh automatically whenever
+more than one device is visible and the batch fills every device's tile.
+These tests assert, on the virtual 8-device CPU mesh:
 
-* sharded scoring is bit-identical to single-device scoring (scan flavor);
-* the sharded Pallas pipeline decides identically to the sharded scan;
+* sharded scoring is bit-identical to single-device scoring;
+* sharded decided rows are byte-identical to single-device decided rows;
 * the runner's automatic mesh path returns the same results as the forced
   single-device path;
 * the full CLI (`tagdust -engine tpu`) produces byte-identical output files
-  under 1 and 8 devices — the TPU analogue of the reference's thread-count
-  invariance fixture (dev/test_data/thread_arch.txt).
+  under 1 and 8 devices — the device analogue of the reference's
+  thread-count invariance fixture (dev/test_data/thread_arch.txt).
 """
 
 import os
@@ -25,14 +24,10 @@ import pytest
 
 import jax
 
-from test_gold_regression import EDITTAG, run_tool
+from test_gold_regression import run_tool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-
-requires_dev = pytest.mark.skipif(
-    not os.path.exists(EDITTAG), reason="reference dev fixtures unavailable"
-)
 
 
 def _flagship_engine():
@@ -60,7 +55,7 @@ def test_sharded_scan_matches_single_device(engine):
     seqs, lens = _random_batch()
     B = seqs.shape[0]
     single = engine.run_batch(seqs, lens)
-    scorer = ShardedScorer(engine, make_mesh(jax.devices()[:8]), use_pallas=False)
+    scorer = ShardedScorer(engine, make_mesh(jax.devices()[:8]))
     out = scorer.run(seqs, lens, threshold=1.0)
     np.testing.assert_array_equal(np.asarray(out[3])[:B], single.labels)
     np.testing.assert_allclose(np.asarray(out[4])[:B], single.mapq, rtol=0, atol=0)
@@ -72,24 +67,16 @@ def test_sharded_scan_matches_single_device(engine):
 
 
 def test_sharded_pallas_matches_sharded_scan(engine):
+    """The streaming decided rows (decisions, keep bits, Q, DUST) sharded
+    over 8 devices are byte-identical to the single-device rows."""
     from tagdust_tpu.parallel.mesh import ShardedScorer, make_mesh
 
     seqs, lens = _random_batch(B=32)
-    B, L = seqs.shape
-    mesh = make_mesh(jax.devices()[:8])
-    sp = ShardedScorer(engine, mesh, use_pallas=True, batch_tile=8)
-    ss = ShardedScorer(engine, mesh, use_pallas=False)
-    op = sp.run(seqs, lens)
-    os_ = ss.run(seqs, lens)
-    lab_p = np.asarray(op[3])[:B, 1:].astype(np.int32)
-    lab_s = np.asarray(os_[3])[:B, 1:].astype(np.int32)
-    # compare within each read's real span (slot 0 is the pre-read slot)
-    for i in range(B):
-        n = int(lens[i])
-        assert (lab_p[i, :n] == lab_s[i, :n]).all(), f"read {i}"
-    np.testing.assert_allclose(
-        np.asarray(op[4])[:B], np.asarray(os_[4])[:B], atol=1e-2
-    )
+    sp = ShardedScorer(engine, make_mesh(jax.devices()[:8]))
+    thr = engine.threshold_f32_ceil(2.0)
+    rows8 = np.asarray(sp.dispatch_packed_decided(seqs, lens, thr, 10))
+    rows1 = np.asarray(engine.dispatch_decided(seqs, lens, thr, 10))
+    np.testing.assert_array_equal(rows8, rows1)
 
 
 def test_runner_engages_mesh(engine, monkeypatch):
@@ -98,7 +85,7 @@ def test_runner_engages_mesh(engine, monkeypatch):
     from tagdust_tpu.engine.runner import _score_reads_tpu
     from tagdust_tpu.io.fastq import Read
 
-    monkeypatch.setenv("TAGDUST_TPU_PALLAS", "0")
+    monkeypatch.setenv("TAGDUST_TPU_BT", "8")
     rng = np.random.default_rng(3)
 
     def mk_reads():
@@ -119,7 +106,7 @@ def test_runner_engages_mesh(engine, monkeypatch):
 
     R.seed_engine(mb, engine, "tpu")
     _score_reads_tpu(mb, reads_mesh, -1, -1)
-    assert getattr(engine, "_mesh_scorers", None), "mesh path not engaged"
+    assert getattr(engine, "_mesh_scorer", None), "mesh path not engaged"
     monkeypatch.setenv("TAGDUST_TPU_MESH", "0")
     _score_reads_tpu(mb, reads_single, -1, -1)
 
@@ -132,15 +119,24 @@ def test_runner_engages_mesh(engine, monkeypatch):
             assert (a.mapq >= thr) == (b.mapq >= thr)
 
 
-@requires_dev
+def _edittag(cwd):
+    """A 4-barcode EDITTAG file from the in-repo generator."""
+    from tagdust_tpu.edittag import greedy_barcodes, write_edittag
+
+    path = os.path.join(cwd, "tags.txt")
+    write_edittag(path, greedy_barcodes(4))
+    return path
+
+
 def test_cli_device_count_invariance(tmp_path):
     """tagdust -engine tpu: byte-identical demultiplexed outputs on 1 vs 8
-    devices (scan flavor on the CPU rig; the per-chip program is identical,
-    so invariance exercises the sharding/padding/merge machinery)."""
+    devices with default flags (calibration included); the per-device
+    program is identical, so invariance exercises the sharding, padding
+    and merge machinery."""
     cwd = str(tmp_path)
     run_tool(
         "simreads",
-        [EDITTAG, "-seed", "42", "-sim_barnum", "4", "-sim_readlen", "20",
+        [_edittag(cwd), "-seed", "42", "-sim_barnum", "4", "-sim_readlen", "20",
          "-sim_readlen_mod", "0", "-sim_numseq", "3000", "-sim_endloss", "0",
          "-sim_random_frac", "0.1", "-o", "dc.fq"],
         cwd,
@@ -150,7 +146,6 @@ def test_cli_device_count_invariance(tmp_path):
         from conftest import spawn_env
 
         env = spawn_env(
-            TAGDUST_TPU_PALLAS="0",
             TAGDUST_TPU_STRICT="1",
             XLA_FLAGS=f"--xla_force_host_platform_device_count={n}",
         )
@@ -174,7 +169,7 @@ def test_cli_device_count_invariance(tmp_path):
 
 def _lite_setup():
     """Small 2-barcode model + param stub for in-process streaming runs
-    (interpret-mode Pallas: keep S and B small)."""
+    (keep S and B small)."""
     from types import SimpleNamespace
 
     from tagdust_tpu.arch import build_read_structure
@@ -216,16 +211,15 @@ def _lite_batch(B=192):
 
 
 def test_streaming_composes_with_mesh(monkeypatch):
-    """The production streaming loop must drive the 8-device mesh itself
-    (VERDICT r4 item 1): dispatch_packed windows with DEPTH in flight,
-    decisions identical to the single-device streaming run and to the
-    one-shot mesh path."""
+    """The production streaming loop must drive the 8-device mesh itself:
+    dispatch_packed windows with DEPTH in flight,
+    decisions identical to the single-device streaming run and to a
+    one-window mesh run."""
     from tagdust_tpu.engine import runner as R
     from tagdust_tpu.parallel import mesh as mesh_mod
 
-    monkeypatch.setenv("TAGDUST_TPU_PALLAS", "1")
     monkeypatch.setenv("TAGDUST_TPU_BT", "8")
-    monkeypatch.setenv("TAGDUST_TPU_WINDOW", "64")
+    monkeypatch.setenv("TAGDUST_TPU_WINDOW", "8")  # per device
     monkeypatch.setenv("TAGDUST_TPU_STRICT", "1")
 
     rs, mb, param = _lite_setup()
@@ -247,7 +241,7 @@ def test_streaming_composes_with_mesh(monkeypatch):
         mesh_mod.ShardedScorer, "dispatch_packed_decided", spy_dec
     )
 
-    # mesh streaming run (8 devices visible on this rig)
+    # mesh streaming run (8 virtual devices)
     monkeypatch.setenv("TAGDUST_TPU_MESH", "1")
     b_mesh = _lite_batch()
     R.run_get_label_batch(mb, rs, b_mesh, param, 10.0)
@@ -258,7 +252,7 @@ def test_streaming_composes_with_mesh(monkeypatch):
     b_one = _lite_batch()
     R.run_get_label_batch(mb, rs, b_one, param, 10.0)
 
-    # one-shot mesh run (window >= B disables streaming)
+    # one-window mesh run (the window caps at the batch)
     monkeypatch.setenv("TAGDUST_TPU_MESH", "1")
     monkeypatch.setenv("TAGDUST_TPU_WINDOW", "100000")
     b_shot = _lite_batch()
@@ -273,7 +267,7 @@ def test_streaming_composes_with_mesh(monkeypatch):
 
 
 def test_device_decisions_match_host_extractor(monkeypatch):
-    """On-device extraction decisions (VERDICT r4 item 5) vs the host
+    """On-device extraction decisions vs the host
     columnar extractor, on an architecture with a fingerprint segment and a
     minlen that trips the too-short path: identical read_type, barcode,
     fingerprint keys, rewritten bytes and qualities."""
@@ -285,7 +279,6 @@ def test_device_decisions_match_host_extractor(monkeypatch):
     from tagdust_tpu.model import init_model_bag
     from tagdust_tpu.stats import SequenceStats
 
-    monkeypatch.setenv("TAGDUST_TPU_PALLAS", "1")
     monkeypatch.setenv("TAGDUST_TPU_BT", "8")
     monkeypatch.setenv("TAGDUST_TPU_WINDOW", "64")
     monkeypatch.setenv("TAGDUST_TPU_STRICT", "1")
@@ -342,17 +335,16 @@ def test_device_decisions_match_host_extractor(monkeypatch):
     assert (dev.read_type == 0).any() and (dev.read_type != 0).any()
 
 
-@requires_dev
 def test_cli_streaming_device_count_invariance(tmp_path):
     """Full CLI byte identity 1-vs-8 devices with the PRODUCTION streaming
-    Pallas path engaged (small interpret-mode tiles; -Q pins the threshold
-    so the run is calibration-free).  The 8-device leg streams sharded
+    path engaged (small tiles and windows; -Q pins the threshold so the run
+    is calibration-free).  The 8-device leg streams sharded
     windows (ShardedScorer.dispatch_packed), the 1-device leg streams
-    single-chip windows — the file set must not notice."""
+    single-device windows — the file set must not notice."""
     cwd = str(tmp_path)
     run_tool(
         "simreads",
-        [EDITTAG, "-seed", "42", "-sim_barnum", "4", "-sim_readlen", "20",
+        [_edittag(cwd), "-seed", "42", "-sim_barnum", "4", "-sim_readlen", "20",
          "-sim_readlen_mod", "0", "-sim_numseq", "1500", "-sim_endloss", "0",
          "-sim_random_frac", "0.1", "-o", "sc.fq"],
         cwd,
@@ -363,7 +355,6 @@ def test_cli_streaming_device_count_invariance(tmp_path):
 
         env = spawn_env(
             rtest=False,
-            TAGDUST_TPU_PALLAS="1",
             TAGDUST_TPU_BT="8",
             TAGDUST_TPU_WINDOW="128",
             TAGDUST_TPU_STRICT="1",
@@ -393,7 +384,6 @@ def test_nibble_gate_rows_identical(monkeypatch):
     change results."""
     from tagdust_tpu.engine import runner as R
 
-    monkeypatch.setenv("TAGDUST_TPU_PALLAS", "1")
     monkeypatch.setenv("TAGDUST_TPU_BT", "8")
     rs, mb, param = _lite_setup()
     R.seed_engine(mb, R.get_engine(mb, "tpu"), "tpu")
@@ -404,7 +394,7 @@ def test_nibble_gate_rows_identical(monkeypatch):
     rows = {}
     for nib in ("1", "0"):
         monkeypatch.setenv("TAGDUST_TPU_NIBBLE", nib)
-        out = eng.dispatch_pallas_decided(seqs, lens, np.float32(2.0), 10)
+        out = eng.dispatch_decided(seqs, lens, np.float32(2.0), 10)
         rows[nib] = np.asarray(out)
     np.testing.assert_array_equal(rows["1"], rows["0"])
 
@@ -430,7 +420,6 @@ def test_device_decisions_arch_sweep(monkeypatch, specs, minlen):
     from tagdust_tpu.model import init_model_bag
     from tagdust_tpu.stats import SequenceStats
 
-    monkeypatch.setenv("TAGDUST_TPU_PALLAS", "1")
     monkeypatch.setenv("TAGDUST_TPU_BT", "8")
     monkeypatch.setenv("TAGDUST_TPU_WINDOW", "32")
     monkeypatch.setenv("TAGDUST_TPU_STRICT", "1")

@@ -3,8 +3,8 @@
 The reference wraps every shell regression in valgrind
 (``configure.ac:45-58``).  The JAX analogue: run the production scoring
 computation under ``jax_debug_nans`` (any NaN produced by any op raises at
-the op) and under ``checkify`` NaN checks — on both the scan engine and the
-fused Pallas pipeline, over inputs that exercise the masked/padded corners
+the op) and under ``checkify`` NaN checks — on the device engine's one-shot
+and sub-batched paths, over inputs that exercise the masked/padded corners
 (ragged lengths, minimum length 1, all-N reads).
 """
 
@@ -57,13 +57,18 @@ def test_debug_nans_scan_engine(engine):
     assert np.isfinite(res.mapq).all()
 
 
-def test_debug_nans_pallas_engine(engine):
+def test_debug_nans_pallas_engine(engine, monkeypatch):
+    """The one-shot scorer split into memory-budget sub-batches: the last
+    sub-batch is padded with copies of read 0, and no padded row may
+    produce a NaN either."""
     seqs, lens = _adversarial_batch()
+    monkeypatch.setattr(engine, "max_batch", lambda Lp: 6)  # 16 -> 6+6+6
     jax.config.update("jax_debug_nans", True)
     try:
-        res = engine.run_batch_pallas(seqs, lens)
+        res = engine.run_batch(seqs, lens)
     finally:
         jax.config.update("jax_debug_nans", False)
+    assert res.mapq.shape == (16,)
     assert np.isfinite(res.mapq).all()
 
 

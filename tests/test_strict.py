@@ -1,13 +1,14 @@
-"""Fallback discipline: a broken fast path must warn loudly once, and
-TAGDUST_TPU_STRICT=1 must re-raise instead of downgrading (VERDICT round 1,
-"silent engine downgrade")."""
+"""Fallback discipline: a failing device core must surface, never be
+replaced by another path.  Each test poisons the DP core and asserts the
+failure propagates out of one device entry point: one-shot scoring, the
+streaming window loop, and the CLI."""
 
 import numpy as np
 import pytest
 
-import tagdust_tpu.strict as strict_mod
 from tagdust_tpu.arch import build_read_structure
 from tagdust_tpu.engine import runner
+from tagdust_tpu.engine import tpu as tpu_mod
 from tagdust_tpu.io.fastq import Read
 from tagdust_tpu.model import init_model_bag
 
@@ -16,96 +17,62 @@ from test_tpu_engine import make_ssi
 
 def _mk_reads(n=8, L=24, seed=0):
     rng = np.random.default_rng(seed)
-    return [Read(name=f"r{i}", seq=rng.integers(0, 4, L).astype(np.uint8))
+    return [Read(name=f"r{i}", seq=rng.integers(0, 4, L).astype(np.uint8),
+                 qual="I" * L)
             for i in range(n)]
 
 
 @pytest.fixture()
-def poisoned_pallas(monkeypatch):
-    """Make every fused-Pallas call raise, as a broken Mosaic build would."""
-    from tagdust_tpu.engine.tpu import TpuEngine
+def poisoned_core(monkeypatch):
+    """Every engine built from here on runs a DP core that raises, as a
+    kernel that fails to compile would; the engine cache starts empty."""
 
-    def boom(self, *a, **k):
-        raise RuntimeError("poisoned pallas kernel")
+    def poisoned(lat_dev):
+        def core(seqs, lens):
+            raise RuntimeError("poisoned DP core")
 
-    monkeypatch.setattr(TpuEngine, "run_batch_pallas", boom)
-    monkeypatch.setattr(strict_mod, "_warned", set())
+        return core
+
+    monkeypatch.setattr(tpu_mod, "xla_core", poisoned)
+    monkeypatch.setattr(runner, "_ENGINE_CACHE", {})
+    monkeypatch.delenv("TAGDUST_TPU_STRICT", raising=False)
     yield
 
 
-def test_poisoned_pallas_warns_and_falls_back(poisoned_pallas, monkeypatch, capsys):
-    monkeypatch.delenv("TAGDUST_TPU_STRICT", raising=False)
+def test_poisoned_core_raises_one_shot(poisoned_core):
     rs = build_read_structure(["B:ACC,GGT", "R:N"])
     mb = init_model_bag(rs, make_ssi(), 0.05, 0.1)
-    reads = _mk_reads()
-    runner.score_reads(mb, reads, engine_kind="tpu")
-    # fallback produced real results on the XLA engine
-    assert all(r.mapq >= 0.0 for r in reads)
-    err = capsys.readouterr().err
-    assert "pallas-scorer" in err and "poisoned pallas kernel" in err
-    # second call: warning not repeated
-    runner.score_reads(mb, _mk_reads(seed=1), engine_kind="tpu")
-    assert capsys.readouterr().err.count("pallas-scorer") == 0
-
-
-def test_poisoned_pallas_strict_raises(poisoned_pallas, monkeypatch):
-    monkeypatch.setenv("TAGDUST_TPU_STRICT", "1")
-    rs = build_read_structure(["B:ACC,GGT", "R:N"])
-    mb = init_model_bag(rs, make_ssi(), 0.05, 0.1)
-    with pytest.raises(RuntimeError, match="poisoned pallas kernel"):
+    with pytest.raises(RuntimeError, match="poisoned DP core"):
         runner.score_reads(mb, _mk_reads(), engine_kind="tpu")
 
 
-def test_grouped_kernel_128_segment_bound_is_loud(monkeypatch, capsys):
-    """The block-banded kernel packs one silent-exit column per segment into
-    a single 128-lane tile; an architecture beyond that bound must downgrade
-    to the dense step path LOUDLY, not silently pay the Sp^2 cliff
-    (VERDICT round 2, item 7).  Unreachable from the CLI grammar (max 10
-    segments) but pinned here against future multi-file label fusions."""
-    import jax.numpy as jnp
+def test_poisoned_core_raises_streaming(poisoned_core, monkeypatch):
+    from types import SimpleNamespace
 
-    from tagdust_tpu.engine import pallas_kernel as PK
-    from tagdust_tpu.engine.lattice import grouped_step_decomposition
-    from tagdust_tpu.engine.tpu import TpuEngine
+    from tagdust_tpu.io.batch import ReadBatch
 
-    monkeypatch.delenv("TAGDUST_TPU_STRICT", raising=False)
-    monkeypatch.setattr(strict_mod, "_warned", set())
-
-    rs = build_read_structure(["B:ACGTAC,TGCATG", "R:N"])
+    monkeypatch.setenv("TAGDUST_TPU_BT", "8")
+    monkeypatch.setenv("TAGDUST_TPU_WINDOW", "16")
+    monkeypatch.setenv("TAGDUST_TPU_MESH", "0")
+    rs = build_read_structure(["B:ACC,GGT", "R:N"])
     mb = init_model_bag(rs, make_ssi(), 0.05, 0.1)
-    eng = TpuEngine(mb)
-    lat = eng.lat
-    dec = grouped_step_decomposition(mb, lat)
-    assert dec is not None
-    fat = dict(dec)
-    fat["Uexit"] = np.zeros((lat.S, 129), dtype=np.float32)  # "129 segments"
-
-    Lp, BT = 16, 8
-    call, *_ = PK.make_fused_scorer(
-        lat.A, lat.Uent, lat.Eent, lat.end,
-        np.asarray(eng._dev["Lmap"]), np.asarray(eng._dev["ent_sel"]),
-        lat.begin, Lp, BT, interpret=True,
-        tmatrix=np.asarray(eng._dev["tmat"]), grouped=fat,
+    param = SimpleNamespace(
+        engine="tpu", rtest=False, matchstart=-1, matchend=-1,
+        minlen=10, dust=0, num_threads=4,
     )
-    err = capsys.readouterr().err
-    assert "grouped-step-kernel" in err and "128-segment" in err
+    batch = ReadBatch.from_reads(_mk_reads(n=48))
+    with pytest.raises(RuntimeError, match="poisoned DP core"):
+        runner.run_get_label_batch(mb, rs, batch, param, 10.0)
 
-    # the dense downgrade still scores correctly
-    rng = np.random.default_rng(0)
-    B = 8
-    seqs = rng.integers(0, 4, (B, Lp)).astype(np.int32)
-    lens = np.full(B, 12, dtype=np.int32)
-    f_log, logpb, labels, tp = call(jnp.asarray(seqs), jnp.asarray(lens))
-    ref = eng.run_batch(seqs.astype(np.uint8), lens)
-    np.testing.assert_allclose(np.asarray(f_log), ref.f_score, atol=1e-5)
 
-    # strict mode refuses the downgrade instead
-    monkeypatch.setenv("TAGDUST_TPU_STRICT", "1")
-    monkeypatch.setattr(strict_mod, "_warned", set())
-    with pytest.raises(ValueError, match="128-lane"):
-        PK.make_fused_scorer(
-            lat.A, lat.Uent, lat.Eent, lat.end,
-            np.asarray(eng._dev["Lmap"]), np.asarray(eng._dev["ent_sel"]),
-            lat.begin, Lp, BT, interpret=True,
-            tmatrix=np.asarray(eng._dev["tmat"]), grouped=fat,
-        )
+def test_poisoned_core_raises_on_cli_path(poisoned_core, tmp_path):
+    from tagdust_tpu.cli.tagdust import main
+
+    fq = tmp_path / "in.fq"
+    with open(fq, "w") as fh:
+        for r in _mk_reads(n=64, L=30):
+            seq = "".join("ACGT"[c] for c in r.seq)
+            fh.write(f"@{r.name}\n{seq}\n+\n{r.qual}\n")
+    with pytest.raises(RuntimeError, match="poisoned DP core"):
+        main([str(fq), "-1", "B:ACCGTA,GGTTAC", "-2", "R:N", "-engine", "tpu",
+              "-Q", "10", "-o", str(tmp_path / "out")])

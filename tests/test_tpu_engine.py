@@ -1,6 +1,6 @@
-"""TPU engine (closure-lattice matmul scan) vs exact engine: decisions match.
+"""Device engine (closure-lattice matmul scan) vs exact engine: decisions match.
 
-Runs on the virtual CPU mesh (conftest).  The TPU engine uses clean float32
+Runs on the virtual CPU mesh (conftest).  The device engine uses clean float32
 linear-space math rather than the reference's table-logsum, so scores agree
 only approximately — but label paths, extraction outcomes and barcode
 assignments must match.
@@ -87,7 +87,7 @@ def test_dryrun_multichip_8():
 
 def test_distributed_trainer_device_count_invariance():
     """psum-reduced BW expected counts are identical on a 1-device and an
-    8-device mesh (the TPU analogue of the reference's thread-count
+    8-device mesh (the device analogue of the reference's thread-count
     invariance fixture, dev/test_data/thread_arch.txt)."""
     import jax
     import numpy as np
@@ -119,8 +119,8 @@ def test_distributed_trainer_device_count_invariance():
 
 
 def test_resolve_engine_auto(monkeypatch):
-    """-engine auto selects the device engine iff a non-CPU backend is
-    present; -rtest and explicit -engine pins override (VERDICT r3 item 4)."""
+    """-engine auto selects the device engine iff JAX's backend is a GPU;
+    -rtest and explicit -engine pins override."""
     import jax
 
     from tagdust_tpu.config import parse_args
@@ -132,10 +132,10 @@ def test_resolve_engine_auto(monkeypatch):
 
     assert runner.resolve_engine(fresh(["-engine", "tpu"])) == "tpu"
     assert runner.resolve_engine(fresh(["-engine", "exact"])) == "exact"
-    # this rig pins JAX_PLATFORMS=cpu (conftest) -> auto resolves to exact
+    # the tests pin JAX_PLATFORMS=cpu (conftest) -> auto resolves to exact
     assert runner.resolve_engine(fresh([])) == "exact"
-    # a non-CPU backend flips auto to the device engine...
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # a GPU backend flips auto to the device engine...
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert runner.resolve_engine(fresh([])) == "tpu"
     # ...except under -rtest, which pins the bit-exact engine
     assert runner.resolve_engine(fresh(["-rtest"])) == "exact"
