@@ -188,14 +188,13 @@ def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
 
 def _run_sharded(scorer, eng, seqs, lens_arr, want_labels):
     """Score one padded batch over the device mesh.  Each device scores
-    blocks of exactly the size `TpuEngine.run_batch` dispatches on one
-    device (min(max_batch, B) reads): a GPU's matmul results depend on the
-    batch shape, so equal per-device shapes are what keep the outputs
-    independent of the device count."""
+    blocks of the size `TpuEngine.run_batch` dispatches on one device
+    (`TpuEngine.block_rows`), so every device runs the program shape one
+    device runs."""
     from .tpu import TpuBatchResult
 
     B, Lp = seqs.shape
-    step = scorer.n * min(eng.max_batch(Lp), B)
+    step = scorer.n * eng.block_rows(B, eng.max_batch(Lp))
     parts = [[] for _ in range(5)]
     for s in range(0, B, step):
         nb = min(step, B - s)
@@ -494,20 +493,32 @@ def _label_tpu_streaming(mb, rs, batch, param, confidence_threshold) -> None:
     scorer = _mesh_scorer(eng, B)  # None on single-device hosts
     n_dev = scorer.n if scorer is not None else 1
     DEPTH = int(os.environ.get("TAGDUST_TPU_PIPELINE_DEPTH", "3"))
-    # Per-device window W1: the memory budget shared by DEPTH windows in
-    # flight (TAGDUST_TPU_WINDOW overrides), never more than the chunk
-    # needs.  It depends on the chunk and the model only, never on the
-    # device count, and every window is padded to exactly n_dev * W1 reads:
-    # a GPU's matmul results depend on the batch shape, so equal
-    # per-device shapes keep the outputs device-count invariant.
+    rfl = eng.required_finger_len()
+    # DEVICE-DECIDED mode (default): the extraction decision tree runs on
+    # the device alongside the DP and labels never leave the device — the
+    # host receives decisions + keep bits and only rewrites bytes
+    # (extract.apply_device_decisions).  Gated off for subrange decodes and
+    # >27nt fingerprints (host extractor keeps those exact), or via
+    # TAGDUST_TPU_DEVICE_DECISIONS=0.
+    decided = (
+        not sub
+        and rfl <= 27
+        and os.environ.get("TAGDUST_TPU_DEVICE_DECISIONS", "1") == "1"
+    )
+    # Per-device window W1: the chunk cut into `block_rows` blocks within
+    # the memory budget shared by DEPTH windows in flight
+    # (TAGDUST_TPU_WINDOW overrides the cap).  A window is one block per
+    # device; W1 does not depend on the device count.
     BT = eng.default_batch_tile()
     wenv = os.environ.get("TAGDUST_TPU_WINDOW")
-    W1 = (
+    cap = (
         max(int(wenv) // BT * BT, BT)
         if wenv
-        else eng.max_batch(Lpad, depth=DEPTH)
+        else eng.max_batch(
+            Lpad, "decided" if decided else "packed", depth=DEPTH
+        )
     )
-    W1 = min(W1, -(-B // BT) * BT)
+    W1 = eng.block_rows(B, cap)
     W = W1 * n_dev
 
     cap = max(batch.seq_arena.shape[0] - 1, 0)
@@ -549,18 +560,6 @@ def _label_tpu_streaming(mb, rs, batch, param, confidence_threshold) -> None:
         # host dust (its label-buffer quirks differ)
         dust_dev = np.empty((B, 2), dtype=np.float32)
 
-    # DEVICE-DECIDED mode (default): the extraction decision tree runs on
-    # the device alongside the DP and labels never leave the device — the
-    # host receives decisions + keep bits and only rewrites bytes
-    # (extract.apply_device_decisions).  Gated off for subrange decodes and
-    # >27nt fingerprints (host extractor keeps those exact), or via
-    # TAGDUST_TPU_DEVICE_DECISIONS=0.
-    rfl = eng.required_finger_len()
-    decided = (
-        not sub
-        and rfl <= 27
-        and os.environ.get("TAGDUST_TPU_DEVICE_DECISIONS", "1") == "1"
-    )
     if decided:
         from ..extract import apply_device_decisions
 

@@ -107,16 +107,3 @@ def ref_bins():
         out[name] = exe
     return out
 
-
-@pytest.fixture(autouse=True)
-def _gpu_marker(request):
-    """Tests marked ``gpu`` compile kernels for the card (not in interpret
-    mode): they run only when JAX's first device is a GPU, which the
-    JAX_PLATFORMS=cpu pin above rules out under pytest.  Decided here, per
-    test, never while modules are imported."""
-    if request.node.get_closest_marker("gpu") is None:
-        return
-    import jax
-
-    if jax.devices()[0].platform != "gpu":
-        pytest.skip("needs a GPU; run on the card by chip_smoke.py")

@@ -168,3 +168,76 @@ def test_core_decisions_match_exact(n_barcodes):
             res.labels[b, 1 : n + 1].astype(np.int32), labels[b, 1 : n + 1]
         )
     assert np.nanmax(np.abs(res.mapq - q)) < 0.15
+
+
+@pytest.mark.parametrize("B,cap", [(131072, 40960), (868928, 60928),
+                                   (50000, 60928), (1000, 200), (16, 6)])
+def test_block_rows_same_shape_on_any_device_count(B, cap):
+    """Blocks are whole tiles within the cap, pad each block by less than a
+    tile, and come in a multiple of SPLIT when the batch is large: 1, 2, 4
+    or 8 devices, one block each per window, then need no padded block."""
+    eng = TpuEngine(_model(["B:ACGTAC,TGCATG", "R:N"]))
+    blk = eng.block_rows(B, cap)
+    bt = min(eng.default_batch_tile(), cap, B)
+    n_blk = -(-B // blk)
+    assert blk <= cap and blk % bt == 0
+    assert n_blk <= -(-(-(-B // cap)) // eng.SPLIT) * eng.SPLIT
+    for n_dev in (2, 4, 8):
+        windows = -(-n_blk // n_dev)
+        if n_blk % eng.SPLIT == 0:
+            assert windows * n_dev == n_blk  # no padded blocks
+    assert n_blk * blk - B < n_blk * bt  # under one tile of padding per block
+
+
+def test_bytes_per_read_is_xla_count_and_bounds_windows():
+    """bytes_per_read is XLA's own memory count of the program, linear in
+    the batch, and max_batch keeps a dispatch within the budget."""
+    eng = TpuEngine(_model(["B:ACGTAC,TGCATG,CCAAGG", "R:N"]))
+    per = eng.bytes_per_read("decided", 32)
+    B = 3 * eng.PROBE_TILES * eng.default_batch_tile()
+    fn, specs = eng._program("decided", 32, B)
+    assert specs[0].shape == (B, 16)  # nibble-packed upload
+    m = fn.lower(*specs).compile().memory_analysis()
+    big = (m.temp_size_in_bytes + m.argument_size_in_bytes
+           + m.output_size_in_bytes) / B
+    assert 0.9 * per <= big <= per * 1.001
+    cap = eng.max_batch(32, "decided", depth=3)
+    assert cap % eng.default_batch_tile() == 0
+    assert cap * per <= eng.memory_budget_bytes() / 3
+
+
+def test_float32_core_moves_a_near_tie_under_q10(tmp_path):
+    """With ``-Q 10`` the threshold is 0 (the reference's quirk), so every
+    read's label path decides its file.  READ36509 is a label-DP near tie:
+    the device core in plain float32 (the CPU; no TF32) files it in
+    ``_un`` where the exact engine's table arithmetic files it under
+    CGCGAT.  Not every read the device decides differently from the exact
+    engine under ``-Q 10`` is a TF32 effect.  The input is reads 36490-36529
+    of ``simreads -seed 42 -sim_barnum 20 -sim_readlen 50 -sim_readlen_mod 0
+    -sim_endloss 0 -sim_random_frac 0.1 -sim_error_rate 0.02`` over
+    ``greedy_barcodes(20)`` (the input of chip_smoke.py)."""
+    import os
+
+    from tagdust_tpu.cli.tagdust import main
+
+    fq = os.path.join(os.path.dirname(__file__), "data", "q10_near_tie.fq")
+    arch = ["-1", f"B:{','.join(greedy_barcodes(20))}", "-2", "R:N"]
+
+    def files_of(label):
+        out = {}
+        for f in os.listdir(tmp_path):
+            if f.startswith(label + "_") and f.endswith(".fq"):
+                lines = (tmp_path / f).read_text().splitlines()
+                for i in range(0, len(lines), 4):
+                    out[lines[i].split(";")[0]] = f[len(label):]
+        return out
+
+    for eng in ("exact", "tpu"):
+        main([fq, *arch, "-engine", eng, "-Q", "10",
+              "-o", str(tmp_path / eng)])
+    ex, dv = files_of("exact"), files_of("tpu")
+    assert len(ex) == len(dv) == 40
+    moved = {n for n in ex if ex[n] != dv[n]}
+    assert moved == {"@READ36509"}
+    assert ex["@READ36509"] == "_BC_CGCGAT.fq"
+    assert dv["@READ36509"] == "_un.fq"

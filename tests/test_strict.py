@@ -3,6 +3,8 @@ replaced by another path.  Each test poisons the DP core and asserts the
 failure propagates out of one device entry point: one-shot scoring, the
 streaming window loop, and the CLI."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,18 +24,19 @@ def _mk_reads(n=8, L=24, seed=0):
             for i in range(n)]
 
 
+def _poisoned(seqs, lens):
+    raise RuntimeError("poisoned DP core")
+
+
 @pytest.fixture()
 def poisoned_core(monkeypatch):
-    """Every engine built from here on runs a DP core that raises, as a
-    kernel that fails to compile would; the engine cache starts empty."""
-
-    def poisoned(lat_dev):
-        def core(seqs, lens):
-            raise RuntimeError("poisoned DP core")
-
-        return core
-
-    monkeypatch.setattr(tpu_mod, "xla_core", poisoned)
+    """Every device engine the runner builds from here on is given a DP core
+    (`TpuEngine(core=...)`) that raises, as a kernel that fails to compile
+    would; the engine cache starts empty."""
+    monkeypatch.setattr(
+        tpu_mod, "TpuEngine",
+        functools.partial(tpu_mod.TpuEngine, core=_poisoned),
+    )
     monkeypatch.setattr(runner, "_ENGINE_CACHE", {})
     monkeypatch.delenv("TAGDUST_TPU_STRICT", raising=False)
     yield
